@@ -12,10 +12,6 @@ Run: python examples/00_quickstart.py
 import os as _os, sys as _sys
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
 import numpy as np
-import jax
-
-jax.config.update("jax_platforms", "cpu")
-
 import libdmet_preview_tpu.dmet.hubbard as dmet
 from libdmet_preview_tpu.dmet.loop import run_dmet
 from libdmet_preview_tpu.utils.config import DmetConfig

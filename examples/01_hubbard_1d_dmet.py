@@ -9,11 +9,6 @@ Run: python examples/01_hubbard_1d_dmet.py
 import os as _os, sys as _sys
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
 import numpy as np
-import jax
-
-# CPU is fine for this size; on a TPU host just drop this line
-jax.config.update("jax_platforms", "cpu")
-
 import libdmet_preview_tpu.dmet.hubbard as dmet
 from libdmet_preview_tpu.solvers import FCI
 from libdmet_preview_tpu.ops.diis import DIIS

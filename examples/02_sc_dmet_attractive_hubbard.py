@@ -9,10 +9,6 @@ Run: python examples/02_sc_dmet_attractive_hubbard.py
 import os as _os, sys as _sys
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
 import numpy as np
-import jax
-
-jax.config.update("jax_platforms", "cpu")
-
 from libdmet_preview_tpu.dmet import hubbard_bcs as dmet
 from libdmet_preview_tpu.ops import spinless
 from libdmet_preview_tpu.solvers import FCI

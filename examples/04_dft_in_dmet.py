@@ -10,10 +10,6 @@ Run: python examples/04_dft_in_dmet.py
 import os as _os, sys as _sys
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
 import numpy as np
-import jax
-
-jax.config.update("jax_platforms", "cpu")
-
 from libdmet_preview_tpu.models.abinitio import (make_h_ring_lattice,
                                                  attach_ks)
 import libdmet_preview_tpu.dmet.hubbard as dmet

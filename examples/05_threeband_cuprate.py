@@ -10,10 +10,6 @@ Run: python examples/05_threeband_cuprate.py
 import os as _os, sys as _sys
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
 import numpy as np
-import jax
-
-jax.config.update("jax_platforms", "cpu")
-
 import libdmet_preview_tpu.dmet.hubbard as dmet
 from libdmet_preview_tpu.models.lattice import Square3Band
 from libdmet_preview_tpu.models.hamiltonian import Hubbard3band_ref

@@ -17,11 +17,7 @@ _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__)
 import time
 
 import numpy as np
-import jax
-
 import libdmet_preview_tpu  # noqa: F401
-jax.config.update("jax_platforms", "cpu")
-
 import libdmet_preview_tpu.dmet.hubbard as dmet
 from libdmet_preview_tpu.models.abinitio import make_diamond_lattice
 from libdmet_preview_tpu.ops import embham

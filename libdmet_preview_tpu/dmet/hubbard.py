@@ -1,6 +1,6 @@
 """
 DMET user-facing API for Hubbard-family lattice models
-(TPU-native rewrite of reference dmet/Hubbard.py + dmet/HubPhSymm.py).
+(JAX rewrite of reference dmet/Hubbard.py + dmet/HubPhSymm.py).
 
 Carries the same vocabulary as the reference so that driver loops translate
 one-to-one:  HartreeFock / RHartreeFock, ConstructImpHam, apply_dmu,

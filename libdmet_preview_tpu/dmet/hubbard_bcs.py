@@ -7,7 +7,7 @@ Implementation note: the HFB/BdG problem is mathematically identical to a
 GHF problem in the particle-hole transformed (GSO) frame -- the pairing
 Delta a^dag b^dag becomes the number-conserving one-body block
 [[v_a, D], [D^T, -v_b^T]].  So this facade drives the spinless machinery
-(ops/spinless.py) with a Bogoliubov vcor: one TPU-native code path covers
+(ops/spinless.py) with a Bogoliubov vcor: one code path covers
 both the reference's bcs.py (Nambu) and spinless.py (GSO) stacks, and the
 embedded problem stays a plain number-conserving FCI/CC solve instead of
 requiring the reference's generated-code pairing integral transforms

@@ -1,6 +1,6 @@
 """
 GSO (spinless / superconducting) DMET facade
-(TPU-native rewrite of reference /root/reference/libdmet/dmet/HubbardGSO.py).
+(JAX rewrite of reference libdmet/dmet/HubbardGSO.py).
 
 Workflow:
   GH1, GH0   = spinless.transform_H1_k(lattice H1(k))

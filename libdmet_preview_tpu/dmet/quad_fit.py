@@ -1,6 +1,6 @@
 """
 Robust quadratic extrapolation for the chemical-potential fit
-(TPU-native rewrite of reference dmet/quad_fit.py:15-232).
+(JAX rewrite of reference dmet/quad_fit.py:15-232).
 """
 
 import math

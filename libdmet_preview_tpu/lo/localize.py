@@ -3,7 +3,7 @@ Orbital localization by metric maximization over orthogonal rotations
 (reference analogs: lo/ibo.py:39-300 Pipek-Mezey/IBO with IAO charges,
 lo/edmiston.py:31-300 Edmiston-Ruedenberg via a CIAH kernel).
 
-TPU-native design: one generic maximizer -- the rotation is parametrized
+Design: one generic maximizer -- the rotation is parametrized
 as C exp(K) with K antisymmetric, the metric is a pure jax function, and
 scipy BFGS drives jitted value/grad kernels (replacing the reference's
 hand-coded CIAH second-order loop)."""

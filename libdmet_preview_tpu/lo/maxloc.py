@@ -1,5 +1,5 @@
 """
-Maximally-localized Wannier functions, TPU-native.
+Maximally-localized Wannier functions.
 
 Reference role: /root/reference/libdmet/lo/pywannier90.py:73-700 drives the
 external wannier90 Fortran library (build .win/.mmn/.amn, call libwannier.so,
@@ -7,7 +7,7 @@ read U matrices back).  This module implements the same capability natively:
 the Marzari-Vanderbilt spread functional and its minimization over the
 per-k gauge U(k), formulated as batched dense algebra over the whole
 (nk, nb) tensor of overlap matrices -- one jitted `lax.while_loop` program,
-no per-k Python loops -- so the minimization itself runs on the MXU.
+no per-k Python loops -- so the minimization itself runs on the device.
 
 Pieces
 ------

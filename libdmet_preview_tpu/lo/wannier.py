@@ -3,8 +3,8 @@ Wannier-style localized orbitals
 (reference /root/reference/libdmet/lo/pywannier90.py:73-700 W90 driver and
 lo/proj_wannier.py:288-400 projection guesses).
 
-The reference drives the external wannier90 library through ctypes.  The
-TPU-native build keeps the same *capability* -- a k-resolved set of
+The reference drives the external wannier90 library through ctypes.  This
+build keeps the same *capability* -- a k-resolved set of
 localized orbitals spanning selected bands from initial guesses -- via the
 analytic projection method (the proj_wannier path, which is also what
 wannier90 uses as its starting point):

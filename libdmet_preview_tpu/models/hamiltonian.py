@@ -1,5 +1,5 @@
 """
-Model Hamiltonians (TPU-native rewrite of reference system/hamiltonian.py:18-330).
+Model Hamiltonians (JAX rewrite of reference system/hamiltonian.py:18-330).
 
 `HamNonInt` is a plain container of stripe H1/Fock + local-format H2;
 the factories build Hubbard-family Hamiltonians from lattice geometry.

@@ -1,6 +1,6 @@
 """
 Embedding-Hamiltonian container + FCIDUMP/HDF5 I/O
-(TPU-native rewrite of reference system/integral.py:60-930).
+(JAX rewrite of reference system/integral.py:60-930).
 
 Integral is a plain pytree-style container:
   H0: scalar

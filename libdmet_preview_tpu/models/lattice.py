@@ -1,8 +1,8 @@
 """
-Lattice geometry and the model-lattice container (TPU-native).
+Lattice geometry and the model-lattice container.
 
 Re-implements the capabilities of reference system/lattice.py:31-1357 with a
-TPU-first layout:
+device-first layout:
 
   * geometry / index maps are static numpy, computed once on host;
   * all lattice operators are stored as "stripe" arrays (ncells, nlo, nlo)

@@ -1,6 +1,6 @@
 """
 DIIS extrapolation for the vcor parameter vector
-(TPU-native rewrite of reference routine/diis.py:34-300 + the pyscf
+(JAX rewrite of reference routine/diis.py:34-300 + the pyscf
 lib.diis usage in the driver scripts).
 
 The vectors are tiny (nparam ~ 10-100); this is pure numpy on host.

@@ -1,5 +1,5 @@
 """
-Schmidt bath construction and embedding-Hamiltonian transforms (TPU-native).
+Schmidt bath construction and embedding-Hamiltonian transforms.
 
 Replaces reference routine/slater.py:98-688 and routine/slater_helper.py:22-157.
 All transforms are batched einsums on device:
@@ -10,7 +10,7 @@ All transforms are batched einsums on device:
         H_emb = (1/Nk) sum_k C_k^H H_k C_k        (transform_trans_inv_k)
     as one batched GEMM chain;
   * local-operator and local-ERI transforms contract over the cell axis of
-    the R-space basis in single einsums (MXU-friendly).
+    the R-space basis in single einsums (GEMM-friendly).
 """
 
 import numpy as np
@@ -292,9 +292,9 @@ def _bath_vectors(A):
     ncol) environment-impurity RDM block.
 
     Fast path: the ncol x ncol Gram matrix eigendecomposition (sigma^2 =
-    eig(A^T A), u = A V / sigma, + Newton-Schulz orthonormalization) -- an
-    MXU-friendly GEMM + tiny eigh instead of the tall SVD (the slow f64 op
-    on TPU; the bench-validated bath construction now the library default).
+    eig(A^T A), u = A V / sigma, + Newton-Schulz orthonormalization) -- one
+    GEMM + tiny eigh instead of the tall SVD (the bench-validated bath
+    construction, now the library default).
     Falls back to the exact SVD per spin channel whenever a singular value
     is small enough (< 1e-6 * sigma_max) that the Gram square would lose
     the truncation decision (tol_bath semantics, reference slater.py:181-196).

@@ -1,22 +1,20 @@
 """
 Embedding-ERI transforms from factorized two-electron integrals
-(TPU-native rewrite of the reference's hot core,
-/root/reference/libdmet/basis_transform/eri_transform.py:44-1500).
+(rewrite of the reference's hot core,
+libdmet/basis_transform/eri_transform.py:44-1500).
 
 The reference streams CDERI chunks from HDF5 per (ki, kj) momentum pair
 and accumulates eri += w * L^dagger L on the CPU.  Here the density-fitted
 (Cholesky) factors live on device and the whole transform is two batched
-GEMMs that XLA tiles onto the MXU:
+f64 GEMMs that XLA hands to the BLAS library (cuBLAS on the GPU):
 
     L_emb[x, i, j] = C[p, i] L[x, p, q] C[q, j]          (AO->EO rotation)
-    eri[s]         = einsum('xij, xkl -> ijkl', La, Lb)  (syrk-like)
+    eri[s]         = einsum('xij, xkl -> ijkl', La, Lb)  (s4-packed GEMM)
 
 For the molecular/ring path the factors come from a pivoted Cholesky of
 the exact ERI (utils analog of reference utils/cholesky.py); for a
 periodic GDF path the same kernel consumes per-k CDERI pairs.
 """
-
-from functools import partial
 
 import numpy as np
 import jax
@@ -54,25 +52,36 @@ def _rotate_chol(L, C):
     return jnp.einsum("xpq, pi, qj -> xij", L, C, C, optimize=True)
 
 
-@jax.jit
-def _syrk_eri(La, Lb):
-    return jnp.einsum("xij, xkl -> ijkl", La, Lb, optimize=True)
+def eri_from_factors(La, Lb=None):
+    """Chemist ERI eri[ijkl] = sum_x La_x[ij] Lb_x[kl] (Lb = La when
+    None) from rotated DF factors (naux, neo, neo), each symmetric in
+    (ij) as for real orbitals.  One f64 GEMM over the s4-packed pairs
+    i >= j, (npair x naux) @ (naux x npair), then unpacked to (neo,)*4:
+    a quarter of the full-square GEMM's flops (faster than it on the
+    GPU at neo=32 and neo=96, PERF.md)."""
+    neo = La.shape[-1]
+    ti, tj = np.tril_indices(neo)
+    pair = np.empty((neo, neo), dtype=np.int32)
+    pair[ti, tj] = np.arange(len(ti))
+    pair[tj, ti] = pair[ti, tj]
+    pair = pair.reshape(-1)
+    Fa = La[:, ti, tj]
+    Fb = Fa if Lb is None else Lb[:, ti, tj]
+    E = Fa.T @ Fb
+    return E[pair][:, pair].reshape((neo,) * 4)
 
 
-def _use_pallas_syrk(naux, neo):
-    """Auto-select the Pallas split-precision syrk kernel: TPU backend,
-    size above the tile threshold (the kernel pays off once the s4 pair
-    matrix exceeds one 128x128 MXU tile), unless overridden by
-    LIBDMET_PALLAS_ERI=0/1."""
-    import os
-    ov = os.environ.get("LIBDMET_PALLAS_ERI")
-    if ov is not None:
-        return ov not in ("0", "false", "False")
-    try:
-        backend = jax.default_backend()
-    except Exception:
-        return False
-    return (backend == "tpu" and neo >= 48 and naux >= 256)
+_syrk_eri = jax.jit(eri_from_factors)
+
+
+def _check_symmetric(L_emb):
+    """The s4 packing reads only i >= j: refuse factors that are not
+    symmetric in (ij)."""
+    L_emb = np.asarray(L_emb)
+    asym = np.max(np.abs(L_emb - L_emb.transpose(0, 2, 1)), initial=0.0)
+    if asym > 1e-10 * max(np.max(np.abs(L_emb), initial=0.0), 1.0):
+        raise ValueError("DF factors must be symmetric in (pq); "
+                         "max |L - L^T| = %.3e" % asym)
 
 
 def get_emb_eri_chol(L, basis, outcore=None):
@@ -92,25 +101,12 @@ def get_emb_eri_chol(L, basis, outcore=None):
     C = basis.reshape(spin, ncells * nlo, neo)
     Lj = jnp.asarray(L)
     Ls = [_rotate_chol(Lj, jnp.asarray(C[s])) for s in range(spin)]
-    if _use_pallas_syrk(np.shape(L)[0], neo):
-        # flagship TPU kernel: split-fp32 Kahan syrk on the MXU
-        # (ops/pallas_eri.py; ~1e-7 relative vs the f64 einsum,
-        # tests/test_pallas_eri.py + the on-chip bench in README);
-        # unrestricted runs two syrks (aa, bb) + the ab cross GEMM
-        # through the same kernel
-        from libdmet_preview_tpu.ops.pallas_eri import eri_from_df_pallas
-        La = np.asarray(Ls[0])
-        if spin == 1:
-            blocks = [jnp.asarray(eri_from_df_pallas(La))]
-        else:
-            Lb = np.asarray(Ls[1])
-            blocks = [jnp.asarray(eri_from_df_pallas(La)),
-                      jnp.asarray(eri_from_df_pallas(Lb)),
-                      jnp.asarray(eri_from_df_pallas(La, Lb))]
-    elif spin == 1:
-        blocks = [_syrk_eri(Ls[0], Ls[0])]
+    for Ls_s in Ls:
+        _check_symmetric(Ls_s)
+    if spin == 1:
+        blocks = [_syrk_eri(Ls[0])]
     else:
-        blocks = [_syrk_eri(Ls[0], Ls[0]), _syrk_eri(Ls[1], Ls[1]),
+        blocks = [_syrk_eri(Ls[0]), _syrk_eri(Ls[1]),
                   _syrk_eri(Ls[0], Ls[1])]
     if outcore is not None:
         import h5py
@@ -151,12 +147,13 @@ def get_emb_eri_gso_chol(L, basis):
     La = _rotate_chol(Lj, jnp.asarray(Ca))
     Lb = _rotate_chol(Lj, jnp.asarray(Cb))
     Ld = La - Lb
-    return np.asarray(_syrk_eri(Ld, Ld))
+    _check_symmetric(Ld)
+    return np.asarray(_syrk_eri(Ld))
 
 
 def _cplx_einsum(spec, *pairs):
     """einsum over complex operands given as (re, im) pairs; returns a
-    (re, im) pair.  Expands to real einsums (TPU has no complex128)."""
+    (re, im) pair.  Expands to real einsums."""
     acc_re, acc_im = None, None
     import itertools
     n = len(pairs)
@@ -221,7 +218,7 @@ def make_gdf_factors(eri_lo, ncells, nlo, tol=1e-10):
 
 def get_emb_eri_gdf(factors, basis_k, ncells, nlo, tr_symm=False):
     """Embedding ERI from k-resolved GDF factors with momentum
-    conservation (TPU-native form of the reference's hot loop,
+    conservation (JAX form of the reference's hot loop,
     eri_transform.py:235-565: per-q rotate + syrk, batched GEMMs).
 
     tr_symm=True exploits time reversal (real R-space orbitals): the -q
@@ -321,7 +318,7 @@ def get_emb_eri_gso_gdf(factors, basis_k, ncells, nao, tr_symm=False):
 
 def get_emb_eri(source, basis, df_type=None, **kwargs):
     """Unified embedding-ERI dispatch by density-fitting type -- the
-    TPU-native analog of the reference's get_emb_eri entry point
+    JAX analog of the reference's get_emb_eri entry point
     (/root/reference/libdmet/basis_transform/eri_transform.py:44-94,
     which routes on the PySCF DF object's class).  Here the routing key
     is either inferred from `source` or named explicitly:

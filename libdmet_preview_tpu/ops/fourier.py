@@ -1,9 +1,9 @@
 """
-k <-> R transforms for stripe lattice operators (TPU-native, complex-free).
+k <-> R transforms for stripe lattice operators (complex-free).
 
-Replaces reference system/fourier.py:129-256.  TPU XLA has no complex128, so
-k-space arrays are (re, im) real-pair tuples and the DFT over the (small)
-cell mesh is a cos/sin matmul on the MXU (see ops/zlinalg.py).
+Replaces reference system/fourier.py:129-256.  k-space arrays are (re, im)
+real-pair tuples and the DFT over the (small) cell mesh is a cos/sin
+matmul (see ops/zlinalg.py).
 
 Conventions (match reference fourier.py:160-178):
   FFTtoK: A(k) = sum_R e^{-i k.R} A(R)

@@ -1,5 +1,5 @@
 """
-Finite-temperature occupations and chemical-potential search (TPU-native
+Finite-temperature occupations and chemical-potential search (JAX
 rewrite of reference routine/ftsystem.py:24-292).
 
 Two layers:

@@ -1,6 +1,6 @@
 """
 Lattice mean field: batched k-point diagonalization + occupation assignment
-(TPU-native rewrite of reference routine/mfd.py:33-427, 860-957).
+(JAX rewrite of reference routine/mfd.py:33-427, 860-957).
 
 Complex-free: k-space operators are (re, im) real pairs; the per-k Hermitian
 eigenproblem is solved through the real 2n x 2n embedding (ops/zlinalg.py),

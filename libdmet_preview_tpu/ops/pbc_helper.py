@@ -1,5 +1,5 @@
 """
-JK builders for lattice Hamiltonians (TPU-native rewrite of the pieces of
+JK builders for lattice Hamiltonians (JAX rewrite of the pieces of
 reference routine/pbc_helper.py used by the model path).
 """
 

@@ -1,6 +1,6 @@
 """
 GSO / spinless formalism: partial particle-hole transform
-(TPU-native rewrite of the reference's spinless stack,
+(JAX rewrite of the reference's spinless stack,
 /root/reference/libdmet/routine/spinless.py,
 /root/reference/libdmet/routine/spinless_helper.py:48-441,
 /root/reference/libdmet/routine/pbc_helper.py:1129-1330).

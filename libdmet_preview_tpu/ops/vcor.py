@@ -1,5 +1,5 @@
 """
-Correlation-potential (vcor) parametrizations (TPU-native).
+Correlation-potential (vcor) parametrizations.
 
 Replaces the reference's closure-generated Vcor classes
 (routine/vcor.py:19-103, dmet/Hubbard.py:551-1489) with a single Vcor class

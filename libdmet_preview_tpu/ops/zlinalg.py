@@ -1,9 +1,8 @@
 """
-Complex linear algebra as real-pair arithmetic (TPU-native).
+Complex linear algebra as real-pair arithmetic.
 
-TPU XLA does not support complex128, so every k-space quantity in this
-framework is carried as a pair of real float64 arrays (re, im).  The two
-key primitives:
+Every k-space quantity in this framework is carried as a pair of real
+float64 arrays (re, im).  The two key primitives:
 
   * zeigh: Hermitian eigendecomposition via the real symmetric embedding
         W = [[A, -B], [B, A]],  H = A + iB
@@ -14,8 +13,10 @@ key primitives:
 
   * DFT-by-matmul phase tables (cos/sin) replacing complex FFTs; the cell
     meshes in DMET are small (nk <= O(10^3)), so the O(nk^2) matmul DFT is
-    faster on the MXU than a complex FFT would be, and it shards trivially
-    over a k-mesh axis.
+    one GEMM, and it shards trivially over a k-mesh axis.
+
+All eigendecompositions are direct f64 `jnp.linalg.eigh` (LAPACK on the
+CPU, cuSOLVER on the GPU).
 """
 
 from functools import lru_cache, partial
@@ -64,116 +65,6 @@ def zeigh(h_re, h_im):
     bot = jnp.concatenate([h_im, h_re], axis=-1)
     W = jnp.concatenate([top, bot], axis=-2)
     return jnp.linalg.eigh(W)
-
-
-@partial(jax.jit, static_argnames=("iters",))
-def zeigh_refined(h_re, h_im, iters=2, tau=1e-8):
-    """zeigh via an f32 seed + masked first-order f64 refinement.
-
-    TPU f64 eigh is sequential-iteration bound (batch is nearly free,
-    size is not); the f32 eigh is ~4x faster.  The f32 eigenbasis is
-    polished in f64: Newton-Schulz re-orthonormalization, Rayleigh
-    quotients T = V^T W V, first-order rotation E_ij = T_ij/(lam_j-lam_i)
-    masked where |lam_j - lam_i| < tau*scale.  Masked (near-)degenerate
-    subspaces stay mixed -- harmless by design, since every consumer
-    (matrix functions, divided differences) is invariant under rotations
-    within degenerate subspaces (the doubled spectrum is ALWAYS paired).
-    Mixing error contracts quadratically per iteration; iters=2 reaches
-    ~1e-10 for spectra with distinct gaps > 1e-4.
-
-    Returns (w2, V) like zeigh but UNSORTED."""
-    n = h_re.shape[-1]
-    top = jnp.concatenate([h_re, -h_im], axis=-1)
-    bot = jnp.concatenate([h_im, h_re], axis=-1)
-    W = jnp.concatenate([top, bot], axis=-2)
-    w32, V32 = jnp.linalg.eigh(W.astype(jnp.float32))
-    V = V32.astype(W.dtype)
-    I = jnp.eye(2 * n, dtype=W.dtype)
-    scale = jnp.max(jnp.abs(w32)).astype(W.dtype) + 1e-30
-
-    def rayleigh(V):
-        T = jnp.einsum("...pi, ...pq, ...qj -> ...ij", V, W, V,
-                       optimize=True)
-        return T, jnp.diagonal(T, axis1=-2, axis2=-1)
-
-    for _ in range(iters):
-        G = jnp.einsum("...pi, ...pj -> ...ij", V, V, optimize=True)
-        V = V @ (1.5 * I - 0.5 * G)
-        T, lam = rayleigh(V)
-        d = lam[..., None, :] - lam[..., :, None]
-        mask = jnp.abs(d) > tau * scale
-        E = jnp.where(mask, T / jnp.where(mask, d, 1.0), 0.0)
-        V = V + V @ E
-    G = jnp.einsum("...pi, ...pj -> ...ij", V, V, optimize=True)
-    V = V @ (1.5 * I - 0.5 * G)
-    _, lam = rayleigh(V)
-    return lam, V
-
-
-# Eigensolver used inside the Fermi-density ops:
-#   None = auto (f32 seed + 2 masked f64 refinement passes on TPU, where
-#          the direct f64 eigh is the slow op; direct eigh elsewhere),
-#   0    = direct f64 eigh,
-#   k>0  = f32 seed + k refinement iterations.
-# The refined path is validated to machine precision against the direct
-# eigh in tests/test_units.py.
-EIGH_REFINE = None
-_EIGH_REFINE_AUTO = None
-
-
-def _eigh_refine_level():
-    if EIGH_REFINE is not None:
-        return int(EIGH_REFINE)
-    global _EIGH_REFINE_AUTO
-    if _EIGH_REFINE_AUTO is None:
-        try:
-            _EIGH_REFINE_AUTO = 2 if jax.default_backend() == "tpu" else 0
-        except Exception:
-            _EIGH_REFINE_AUTO = 0
-    return _EIGH_REFINE_AUTO
-
-
-def _zeigh_mf(h_re, h_im):
-    level = _eigh_refine_level()
-    if level:
-        return zeigh_refined(h_re, h_im, iters=level)
-    return zeigh(h_re, h_im)
-
-
-@partial(jax.jit, static_argnames=("iters",))
-def eigh_refined_real(h, iters=2, tau=1e-8):
-    """Plain-symmetric analog of zeigh_refined: f32 eigh seed + masked
-    first-order f64 refinement.  Returns (w, V), UNSORTED."""
-    n = h.shape[-1]
-    w32, V32 = jnp.linalg.eigh(h.astype(jnp.float32))
-    V = V32.astype(h.dtype)
-    I = jnp.eye(n, dtype=h.dtype)
-    scale = jnp.max(jnp.abs(w32)).astype(h.dtype) + 1e-30
-
-    def rayleigh(V):
-        T = jnp.einsum("...pi, ...pq, ...qj -> ...ij", V, h, V,
-                       optimize=True)
-        return T, jnp.diagonal(T, axis1=-2, axis2=-1)
-
-    for _ in range(iters):
-        G = jnp.einsum("...pi, ...pj -> ...ij", V, V, optimize=True)
-        V = V @ (1.5 * I - 0.5 * G)
-        T, lam = rayleigh(V)
-        d = lam[..., None, :] - lam[..., :, None]
-        mask = jnp.abs(d) > tau * scale
-        E = jnp.where(mask, T / jnp.where(mask, d, 1.0), 0.0)
-        V = V + V @ E
-    G = jnp.einsum("...pi, ...pj -> ...ij", V, V, optimize=True)
-    V = V @ (1.5 * I - 0.5 * G)
-    _, lam = rayleigh(V)
-    return lam, V
-
-
-def _eigh_mf_real(h):
-    level = _eigh_refine_level()
-    if level:
-        return eigh_refined_real(h, iters=level)
-    return jnp.linalg.eigh(h)
 
 
 @jax.jit
@@ -251,7 +142,7 @@ def zrho_fermi_w(h_re, h_im, nelec, beta, weights):
     N = sum_k w_k tr f(H_k) (time-reversal-reduced meshes: w = 2 for
     paired k, 1 for self-paired).  weights participates only in the mu
     constraint; its cotangent is zero."""
-    ew, V = _zeigh_mf(h_re, h_im)
+    ew, V = zeigh(h_re, h_im)
     mu = _bisect_mu(ew, nelec, beta, weights=weights)
     occ = _fermi(ew, mu, beta)
     rho_re, rho_im = zfunc_from_eig(V, occ)
@@ -259,7 +150,7 @@ def zrho_fermi_w(h_re, h_im, nelec, beta, weights):
 
 
 def _zrho_fermi_w_fwd(h_re, h_im, nelec, beta, weights):
-    ew, V = _zeigh_mf(h_re, h_im)
+    ew, V = zeigh(h_re, h_im)
     mu = _bisect_mu(ew, nelec, beta, weights=weights)
     occ = _fermi(ew, mu, beta)
     rho_re, rho_im = zfunc_from_eig(V, occ)
@@ -287,7 +178,7 @@ def zrho_fermi(h_re, h_im, nelec, beta):
     (d mu from dN = 0).  Implemented as custom_vjp so the backward pass
     REUSES the forward eigendecomposition (one eigh per grad step).
     """
-    ew, V = _zeigh_mf(h_re, h_im)
+    ew, V = zeigh(h_re, h_im)
     mu = _bisect_mu(ew, nelec, beta)
     occ = _fermi(ew, mu, beta)
     rho_re, rho_im = zfunc_from_eig(V, occ)
@@ -295,7 +186,7 @@ def zrho_fermi(h_re, h_im, nelec, beta):
 
 
 def _zrho_fermi_fwd(h_re, h_im, nelec, beta):
-    ew, V = _zeigh_mf(h_re, h_im)
+    ew, V = zeigh(h_re, h_im)
     mu = _bisect_mu(ew, nelec, beta)
     occ = _fermi(ew, mu, beta)
     rho_re, rho_im = zfunc_from_eig(V, occ)
@@ -353,15 +244,14 @@ def rho_fermi_real(h, nelec2, beta):
     hot loops (ops.fit.FitVcorEmb / ops.fastpath): when the embedding
     Hamiltonian is purely real, the doubled-spectrum embedding wastes an
     eigh of size 2n on a block-diagonal matrix -- this op diagonalizes
-    the n x n symmetric matrix directly (TPU eigh cost is dominated by
-    the SEQUENTIAL QR iteration count, which scales with n).
+    the n x n symmetric matrix directly.
 
     `nelec2` keeps the doubled-spectrum convention (2x the physical
     count), so rho_fermi_real(h, n2, b) == zrho_fermi(h, 0, n2, b)[0]
     is a drop-in replacement.  Same degenerate-safe Daleckii-Krein
     backward with chemical-potential feedback, reusing the forward
     eigendecomposition.  Returns (rho, mu)."""
-    ew, V = _eigh_mf_real(h)
+    ew, V = jnp.linalg.eigh(h)
     mu = _bisect_mu(ew, 0.5 * nelec2, beta)
     occ = _fermi(ew, mu, beta)
     rho = jnp.einsum("...pi, ...i, ...qi -> ...pq", V, occ, V)
@@ -369,7 +259,7 @@ def rho_fermi_real(h, nelec2, beta):
 
 
 def _rho_fermi_real_fwd(h, nelec2, beta):
-    ew, V = _eigh_mf_real(h)
+    ew, V = jnp.linalg.eigh(h)
     mu = _bisect_mu(ew, 0.5 * nelec2, beta)
     occ = _fermi(ew, mu, beta)
     rho = jnp.einsum("...pi, ...i, ...qi -> ...pq", V, occ, V)
@@ -398,128 +288,6 @@ def _rho_fermi_real_bwd(nelec2, beta, res, cot):
 
 
 rho_fermi_real.defvjp(_rho_fermi_real_fwd, _rho_fermi_real_bwd)
-
-
-# ----------------------------------------------------------------------
-# warm-started Fermi density: refine a carried eigenbasis instead of
-# re-diagonalizing (the TPU fit hot loop evaluates rho(H + dH) for a
-# long sequence of SMALL dH -- a fresh 32x32 f32 eigh costs ~0.3 ms of
-# sequential iteration on the chip while a masked refinement pass is
-# ~0.15 ms of pure matmuls; carrying the basis across the CG line
-# search turns the per-evaluation eigh into refinement-only, with an
-# exact-eigh fallback under lax.cond whenever the refinement residual
-# says the warm start was too far)
-# ----------------------------------------------------------------------
-
-_WS_RTOL = 1e-7
-
-
-def _refine_from(h, V0, iters=2, tau=1e-8):
-    """Masked first-order eigenbasis refinement starting at V0
-    (same scheme as eigh_refined_real, arbitrary starting basis).
-    Returns (lam, V, resid) -- resid = max |offdiag(V^T h V)|, the
-    convergence certificate."""
-    n = h.shape[-1]
-    I = jnp.eye(n, dtype=h.dtype)
-    V = V0
-
-    def rayleigh(V):
-        T = jnp.einsum("...pi, ...pq, ...qj -> ...ij", V, h, V,
-                       optimize=True)
-        return T, jnp.diagonal(T, axis1=-2, axis2=-1)
-
-    scale = None
-    for _ in range(iters):
-        G = jnp.einsum("...pi, ...pj -> ...ij", V, V, optimize=True)
-        V = V @ (1.5 * I - 0.5 * G)
-        T, lam = rayleigh(V)
-        if scale is None:
-            scale = jnp.max(jnp.abs(lam)) + 1e-30
-        d = lam[..., None, :] - lam[..., :, None]
-        mask = jnp.abs(d) > tau * scale
-        E = jnp.where(mask, T / jnp.where(mask, d, 1.0), 0.0)
-        V = V + V @ E
-    G = jnp.einsum("...pi, ...pj -> ...ij", V, V, optimize=True)
-    V = V @ (1.5 * I - 0.5 * G)
-    T, lam = rayleigh(V)
-    off = T - jnp.eye(h.shape[-1], dtype=h.dtype) * lam[..., None, :]
-    # exclude masked (near-degenerate) pairs from the certificate: the
-    # consumers are invariant under rotations inside those subspaces
-    d = lam[..., None, :] - lam[..., :, None]
-    live = jnp.abs(d) > tau * scale
-    resid = jnp.max(jnp.abs(jnp.where(live, off, 0.0)))
-    return lam, V, resid
-
-
-def _eig_ws(h, V0):
-    """(lam, V) via warm-started refinement with exact-eigh fallback.
-    One refinement pass (quadratic contraction) + the residual
-    certificate: the certificate is what guarantees correctness, the
-    single pass is the cost gamble."""
-    lam_r, V_r, resid = _refine_from(h, V0, iters=1)
-    scale = jnp.max(jnp.abs(lam_r)) + 1e-30
-    ok = resid < _WS_RTOL * scale
-
-    def warm(_):
-        return lam_r, V_r
-
-    def fresh(_):
-        lam, V = _eigh_mf_real(h)
-        return lam, V
-
-    from jax import lax
-    return lax.cond(ok, warm, fresh, None)
-
-
-@jax.custom_vjp
-def rho_fermi_real_ws(h, nelec2, beta, V0):
-    """rho_fermi_real with a WARM-STARTED eigenbasis: V0 is the carried
-    approximate eigenbasis (e.g. from the previous fit step); the op
-    refines it (matmuls only) and falls back to the full eigh when the
-    residual certificate fails -- identical results either way.
-
-    Returns (rho, mu, V) with V the converged basis to carry forward.
-    V0 is a pure computational hint: its cotangent is ZERO (rho does
-    not depend on V0 at convergence).  Pass V0 = I (or anything
-    non-orthogonal to the true basis) to force the fresh-eigh path.
-    nelec2/beta follow rho_fermi_real conventions but ride as traced
-    values here (shape-static)."""
-    ew, V = _eig_ws(h, V0)
-    mu = _bisect_mu(ew, 0.5 * nelec2, beta)
-    occ = _fermi(ew, mu, beta)
-    rho = jnp.einsum("...pi, ...i, ...qi -> ...pq", V, occ, V)
-    return rho, mu, V
-
-
-def _rho_fermi_real_ws_fwd(h, nelec2, beta, V0):
-    ew, V = _eig_ws(h, V0)
-    mu = _bisect_mu(ew, 0.5 * nelec2, beta)
-    occ = _fermi(ew, mu, beta)
-    rho = jnp.einsum("...pi, ...i, ...qi -> ...pq", V, occ, V)
-    return (rho, mu, V), (ew, V, mu, beta)
-
-
-def _rho_fermi_real_ws_bwd(res, cot):
-    ew, V, mu, beta = res
-    w_rho, w_mu, _w_V = cot        # basis cotangent discarded (gauge)
-    f, K = _fermi_K(ew, mu, beta)
-    fp = -beta * f * (1.0 - f)
-    denom = jnp.sum(fp)
-    safe = jnp.abs(denom) > 1e-300
-    inv_denom = jnp.where(safe, 1.0 / jnp.where(safe, denom, 1.0), 0.0)
-    W_eig = jnp.einsum("...pi, ...pq, ...qj -> ...ij", V, w_rho, V)
-    trace_term = jnp.einsum("...ii, ...i ->", W_eig, fp)
-    Mct = K * W_eig
-    diag_coeff = (w_mu - trace_term) * inv_denom
-    Mct = Mct + jnp.einsum("...i, ij -> ...ij", fp,
-                           jnp.eye(ew.shape[-1], dtype=ew.dtype)
-                           ) * diag_coeff
-    dh = jnp.einsum("...pi, ...ij, ...qj -> ...pq", V, Mct, V)
-    return (dh, jnp.zeros_like(mu), jnp.zeros_like(mu),
-            jnp.zeros_like(V))
-
-
-rho_fermi_real_ws.defvjp(_rho_fermi_real_ws_fwd, _rho_fermi_real_ws_bwd)
 
 
 # ----------------------------------------------------------------------

@@ -1,13 +1,13 @@
 """
-k-point sharded DMET kernels (TPU-native replacement of the reference's MPI
-pool: /root/reference/libdmet/routine/mfd_mpi.py:33-213 and
-/root/reference/libdmet/basis_transform/eri_transform_mpi.py:28-394).
+k-point sharded DMET kernels (JAX replacement of the reference's MPI
+pool: libdmet/routine/mfd_mpi.py:33-213 and
+libdmet/basis_transform/eri_transform_mpi.py:28-394).
 
 The reference shards the k loop over MPI ranks with static work assignment
 and allreduces the results.  Here the same axis is a `jax.sharding.Mesh`
 axis: per-k eigendecompositions run as batched `eigh` on each device's k
 shard inside `shard_map`, and the reductions (chemical potential search,
-R-space density matrix, embedding-H1 k sums) are `lax.psum` over ICI.
+R-space density matrix, embedding-H1 k sums) are `lax.psum` collectives.
 
 Everything is a pure function of arrays -> jit/shard_map composable; no
 host round trips inside the step.
@@ -50,7 +50,8 @@ def _mu_global(ew, nelec, beta, axis):
     """Global chemical potential: one all_gather of the (small) spectrum,
     then a LOCAL bisection replicated deterministically on every device.
     A single collective instead of one psum per bisection step -- critical
-    when many virtual devices share few host cores, and cheaper on ICI too.
+    when many virtual devices share few host cores, and fewer collectives on
+    real devices too.
     """
     ew_all = lax.all_gather(ew, axis)          # (ndev, ..., nloc)
     from libdmet_preview_tpu.ops.zlinalg import _bisect_mu
@@ -277,7 +278,7 @@ def get_veff_from_rdm1_emb_sharded(mesh, lattice, rdm1_emb, basis,
 
 # ----------------------------------------------------------------------
 # sharded CCSD residual (the reference's MPI-GCCSD, solver/mpicc.py:33-356
-# + mpicc_main.py: hand-sharded einsums over MPI ranks.  TPU-native form:
+# + mpicc_main.py: hand-sharded einsums over MPI ranks.  JAX form:
 # the residual is pure einsums, so scale-out is GSPMD -- annotate the
 # amplitude shardings over a mesh axis and let XLA insert the collectives)
 # ----------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """
 CASCI impurity solver: FCI in an active space selected by MP2 natural
-occupations, HF-frozen core (TPU-native analog of the reference CASCI
+occupations, HF-frozen core (JAX analog of the reference CASCI
 wrapper, /root/reference/libdmet/solver/dmrgci.py:809-1194, with the
 MP2-natural-orbital selection of get_orbs).
 

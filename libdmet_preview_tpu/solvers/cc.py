@@ -1,5 +1,5 @@
 """
-CCSD impurity solver (TPU-native replacement of the reference CC stack,
+CCSD impurity solver (JAX replacement of the reference CC stack,
 /root/reference/libdmet/solver/cc.py:227-2200 + uccsd/gccsd rdm modules).
 
 Design: one spin-orbital CCSD core covers RHF/UHF/GHF references.  The

@@ -1,6 +1,6 @@
 """
 External solver bridge: FCIDUMP out, subprocess run, energy/RDM back
-(TPU-native analog of the reference's out-of-process solver interfaces:
+(JAX analog of the reference's out-of-process solver interfaces:
 DMRG /root/reference/libdmet/solver/block.py:281-900, SHCI shci.py:35-430,
 with executable paths in solver/settings.py).
 

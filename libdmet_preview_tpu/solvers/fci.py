@@ -1,5 +1,5 @@
 """
-Full CI impurity solver (TPU-native).
+Full CI impurity solver.
 
 Replaces the reference's pyscf direct_spin1/direct_uhf wrappers
 (solver/fci.py:41-430) with a jit-compiled determinant-string sigma algorithm:
@@ -7,11 +7,11 @@ Replaces the reference's pyscf direct_spin1/direct_uhf wrappers
   * string enumeration + single-excitation link tables are built once on host
     (numpy, cached per (norb, nelec));
   * the sigma vector is computed as
-        t1[pq] = E_pq c        (scatter-add over links, VPU)
-        g      = h2e . t1      (one (n^2 x n^2) x (n^2 x na*nb) GEMM, MXU)
+        t1[pq] = E_pq c        (scatter-add over links)
+        g      = h2e . t1      (one (n^2 x n^2) x (n^2 x na*nb) GEMM)
         sigma  = sum_pq E_pq g (scatter-add over links)
     which is the Knowles-Handy algorithm with the dense contraction in the
-    middle mapped onto the MXU;
+    middle as one GEMM;
   * Davidson iterations run as a host loop over the jitted sigma;
   * rdm1/rdm2 are single GEMMs over the same t1 tensors.
 

@@ -8,7 +8,7 @@ The quantity DMET needs is the STATIC (QSGW-Hermitianized) self-energy of
 the embedded mean field, to be subtracted from the embedding H1 when the
 lattice mean field is a GW/QSGW one.  The native implementation is the
 exact static limit (COHSEX) with RPA screening at omega = 0, evaluated in
-a density-fitted (Cholesky) auxiliary space on the MXU:
+a density-fitted (Cholesky) auxiliary space as GEMMs:
 
     chi0_xy = 4 sum_ia L[x,i,a] L[y,i,a] / (e_i - e_a)   (restricted)
     W       = (I - chi0)^{-1}                            (aux space)

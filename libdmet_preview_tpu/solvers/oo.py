@@ -3,7 +3,7 @@ Orbital-optimized correlation solvers: OO-MP2 and OO-CCD.
 
 Reference parity: solver/scf_solver.py:19-498 `oomp2`/`ooccd` modes,
 which compose gmc1step.GCASSCFBigCAS (internal occ-virt rotations only)
-with mp.MP2AsFCISolver (mp.py:147-233) / cc.CCDAsFCISolver.  The TPU
+with mp.MP2AsFCISolver (mp.py:147-233) / cc.CCDAsFCISolver.  This
 design is a single variational program instead of a two-step macro
 iteration: the total correlated energy
 

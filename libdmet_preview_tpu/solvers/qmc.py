@@ -1,6 +1,6 @@
 """
 Deep external-solver interfaces: SHCI, AFQMC, DQMC with real result
-readback (TPU-native analogs of the reference's
+readback (JAX analogs of the reference's
 /root/reference/libdmet/solver/shci.py:35-430 (Arrow/Dice bridge),
 afqmc.py:11-400 (measurement-series parsing) and dqmc.py:184-583
 (blocking analysis + weighted per-rank RDM readback)).

@@ -1,5 +1,5 @@
 """
-Embedded mean field on an `Integral` (TPU-native rewrite of the reference's
+Embedded mean field on an `Integral` (JAX rewrite of the reference's
 molecular-SCF-on-Integral engine, /root/reference/libdmet/solver/scf.py:255-1341).
 
 The reference builds a fake PySCF Mole and patches JK contractions; here the
@@ -243,7 +243,8 @@ class SCF(object):
                 dm_new = (1 - damping) * dm_new + damping * dm
             ddm = np.max(np.abs(dm_new - dm))
             dm = dm_new
-            if abs(E - e_old) < tol and err_norm < np.sqrt(tol):
+            if abs(E - e_old) < tol and err_norm < np.sqrt(tol) \
+                    and ddm < np.sqrt(tol):
                 conv = True
                 e_old = E
                 break

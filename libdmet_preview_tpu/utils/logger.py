@@ -1,5 +1,5 @@
 """
-Leveled logger (TPU-native rewrite of the reference's utils/logger.py:27-140).
+Leveled logger (JAX rewrite of the reference's utils/logger.py:27-140).
 
 Nine levels FATAL..DEBUG2, a module-global `verbose`, and assertion helpers
 (`eassert`, `check`) used as numerical sanitizers throughout the stack.

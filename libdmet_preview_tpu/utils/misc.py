@@ -1,5 +1,5 @@
 """
-Small tensor helpers (TPU-native rewrite of reference utils/misc.py:34-298).
+Small tensor helpers (JAX rewrite of reference utils/misc.py:34-298).
 
 Everything here is shape-static and jit-safe unless noted; host-only helpers
 (index bookkeeping) use numpy.

@@ -1,7 +1,7 @@
 """
 Profiling / tracing hooks (SURVEY 5: the reference has only log-line
-timestamps; first-class jax.profiler + per-phase timers are part of the
-TPU build's auxiliary subsystems).
+timestamps; first-class jax.profiler + per-phase timers are part of this
+build's auxiliary subsystems).
 """
 
 import contextlib

@@ -1,35 +1,79 @@
-import sys, time
+"""The fused DMET iteration at the bench's widths on the GPU, one vcor-fit
+engine against the other (cg, lm).
+
+Every variant is compiled first; then the timed rounds run the variants
+in turn, so that all of them see the same card state.  Each timing is
+N_CHAIN chained iterations in one program (host clock, ended by
+block_until_ready), reported per iteration with the final fit error.
+
+Exits non-zero without a GPU.
+Run: python scripts/prof_fastpath_variants.py [variant ...]
+"""
+import os
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
-import libdmet_preview_tpu
-import jax, jax.numpy as jnp
+import libdmet_preview_tpu  # noqa: F401  (x64 on)
+import jax
+import jax.numpy as jnp
+
 import bench as B
-from libdmet_preview_tpu.ops.fastpath import make_dmet_iteration, chain_iterations
+from libdmet_preview_tpu.ops.fastpath import (make_dmet_iteration,
+                                              chain_iterations)
 
-Lat, vmat, rho_t, chol_L = B.make_lattice()
-vcor = B._VcorFixed(vmat)
-rng = np.random.RandomState(7)
+VARIANTS = ("cg", "lm")
+N_ROUNDS = 3
+N_REP = 3
 
-variant = sys.argv[1]
-chol, nfit = {"full": (chol_L, 20), "noeri": (None, 20),
-              "noeri1": (None, 1), "eri1": (chol_L, 1)}[variant]
 
-t0 = time.perf_counter()
-step, p0 = make_dmet_iteration(Lat, vcor, B.FILLING, beta=B.BETA,
-                               fit_max_iter=nfit, chol_L=chol)
-dp = rng.randn(len(p0)) * 0.1
-embH1_p = step(jnp.asarray(p0 + dp), jnp.asarray(rho_t))[2]
-print("step-compile+run", round(time.perf_counter() - t0, 1), "s", flush=True)
-w, V = np.linalg.eigh(np.asarray(embH1_p))
-occ = 1.0 / (np.exp(np.clip(B.BETA * (w - np.median(w)), -100, 100)) + 1)
-rho_target = np.einsum("spi, si, sqi -> spq", V, occ, V)
-chained = chain_iterations(step, B.N_CHAIN)
-p0_j = jnp.asarray(p0); t_j = jnp.asarray(rho_target)
-def run():
-    return float(chained(p0_j, t_j)[1])
-t0 = time.perf_counter()
-run()
-print("chain-compile+run", round(time.perf_counter() - t0, 1), "s", flush=True)
-t0 = time.perf_counter()
-for _ in range(5): run()
-t = (time.perf_counter() - t0) / 5 / B.N_CHAIN
-print(variant, round(t*1e3, 3), "ms/iter", flush=True)
+def main(names):
+    B.require_gpu()
+    print(B.card_line(), flush=True)
+    Lat, vmat, rho_t, chol_L = B.make_lattice()
+    vcor = B._VcorFixed(vmat)
+    rng = np.random.RandomState(7)
+
+    progs = {}
+    rho_target = None
+    for name in names:
+        t0 = time.perf_counter()
+        step, p0 = make_dmet_iteration(Lat, vcor, B.FILLING, beta=B.BETA,
+                                       fit_max_iter=B.N_FIT_STEPS,
+                                       chol_L=chol_L, fit_engine=name)
+        if rho_target is None:
+            dp = rng.randn(len(p0)) * 0.1
+            embH1_p = step(jnp.asarray(p0 + dp), jnp.asarray(rho_t))[2]
+            w, V = np.linalg.eigh(np.asarray(embH1_p))
+            occ = 1.0 / (np.exp(np.clip(B.BETA * (w - np.median(w)),
+                                        -100, 100)) + 1)
+            rho_target = jnp.asarray(
+                np.einsum("spi, si, sqi -> spq", V, occ, V))
+        chained = chain_iterations(step, B.N_CHAIN)
+        p0_j = jnp.asarray(p0)
+        out = jax.block_until_ready(chained(p0_j, rho_target))
+        progs[name] = (chained, p0_j)
+        print("%-11s compile+first run %7.2f s  fit_err %.3e"
+              % (name, time.perf_counter() - t0, float(out[1])), flush=True)
+
+    times = {name: [] for name in names}
+    errs = {}
+    for _ in range(N_ROUNDS):
+        for name in names:
+            chained, p0_j = progs[name]
+            t0 = time.perf_counter()
+            for _ in range(N_REP):
+                out = jax.block_until_ready(chained(p0_j, rho_target))
+            times[name].append((time.perf_counter() - t0) / N_REP
+                               / B.N_CHAIN * 1e3)
+            errs[name] = float(out[1])
+    for name in names:
+        t = sorted(times[name])
+        print("%-11s ms/iter %s  median %.4f  fit_err %.3e"
+              % (name, " ".join("%.4f" % x for x in times[name]),
+                 t[len(t) // 2], errs[name]), flush=True)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:] or list(VARIANTS))

@@ -1,49 +1,92 @@
+"""Micro-timings of the small f64 eighs on the DMET hot path, on the GPU.
+
+Each case is timed two ways, host clock ended by block_until_ready:
+  dispatch -- one jitted call per eigh (launch latency included),
+  chained  -- 20 dependent eighs inside one lax.scan program, per eigh.
+
+Cases: the f64 eigh (cuSOLVER) at the fused iteration's shapes (one
+32x32, a batch of 14x32x32, and the 14 k-blocks of 16x16 Hermitian
+matrices through their real 32x32 embedding, ops.zlinalg.zeigh), and over
+sizes around 32, batched and single, with jaxlib's default choice and
+with the Jacobi and QR solvers forced: where the GPU eigh stops batching.
+
+Exits non-zero without a GPU.
+Run: python scripts/prof_micro_eigh.py
+"""
+import os
+import sys
 import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
-import libdmet_preview_tpu
-import jax, jax.numpy as jnp
+import libdmet_preview_tpu  # noqa: F401  (x64 on)
+import jax
+import jax.numpy as jnp
 from jax import lax
+
+from bench import card_line, require_gpu
 from libdmet_preview_tpu.ops import zlinalg
 
-def timeit(fn, *a, n=20):
-    fn(*a)  # compile
-    jax.block_until_ready(fn(*a))
+N_REP = 20
+N_CHAIN = 20
+
+
+def timeit(fn, x):
+    jax.block_until_ready(fn(x))
     t0 = time.perf_counter()
-    for _ in range(n):
-        out = fn(*a)
-    # materialize
-    jax.tree_util.tree_map(lambda x: np.asarray(x), out)
-    return (time.perf_counter() - t0) / n * 1e3
+    for _ in range(N_REP):
+        jax.block_until_ready(fn(x))
+    return (time.perf_counter() - t0) / N_REP * 1e3
 
-rng = np.random.RandomState(0)
-H = rng.randn(32, 32); H = jnp.asarray(H + H.T)
-Hb = rng.randn(14, 32, 32); Hb = jnp.asarray(Hb + Hb.transpose(0,2,1))
 
-# chain 20 dependent evals inside ONE program to remove dispatch cost
-def chain20(f):
+def chained(f):
+    """N_CHAIN dependent evaluations of f (x -> (w, V)) in one program."""
     def g(x):
         def body(c, _):
-            out = f(c)
-            return c + 1e-20 * out[0].sum() if isinstance(out, tuple) else c + 1e-20*out.sum(), None
-        return lax.scan(body, x, None, length=20)[0]
+            w, V = f(c)
+            return c + 1e-20 * (jnp.sum(w) + jnp.sum(V)), None
+        return lax.scan(body, x, None, length=N_CHAIN)[0]
     return jax.jit(g)
 
-eigh32_f32 = jax.jit(lambda h: jnp.linalg.eigh(h.astype(jnp.float32)))
-eigh32_f64 = jax.jit(lambda h: jnp.linalg.eigh(h))
-eighb_f32 = jax.jit(lambda h: jnp.linalg.eigh(h.astype(jnp.float32)))
-refined = jax.jit(lambda h: zlinalg.eigh_refined_real(h))
-rho = jax.jit(lambda h: zlinalg.rho_fermi_real(h, 32, 1000.0))
-fg = jax.jit(jax.value_and_grad(lambda h: zlinalg.rho_fermi_real(h, 32, 1000.0)[0].sum()))
-mm = jax.jit(lambda h: h @ h)
 
-for name, f, x in [("eigh32_f32", eigh32_f32, H),
-                   ("eigh32_f64", eigh32_f64, H),
-                   ("eighb14_f32", eighb_f32, Hb),
-                   ("eigh_refined", refined, H),
-                   ("rho_fermi", rho, H),
-                   ("rho_fg", fg, H),
-                   ("matmul32", mm, H)]:
-    t1 = timeit(f, x)
-    c = chain20(lambda y, f=f: (f(y)[0] if isinstance(f(y), tuple) else f(y),))
-    tc = timeit(c, x) / 20.0
-    print(f"{name:14s} dispatch {t1:8.3f} ms   chained {tc:8.3f} ms", flush=True)
+def sym(rng, shape):
+    a = rng.randn(*shape)
+    return jnp.asarray(a + np.swapaxes(a, -1, -2))
+
+
+def main():
+    require_gpu()
+    print(card_line(), flush=True)
+    rng = np.random.RandomState(0)
+    impl = lax.linalg.EighImplementation
+
+    def forced(which):
+        return lambda h: lax.linalg.eigh(h, implementation=which)[::-1]
+
+    zre = sym(rng, (14, 16, 16))
+    zim_raw = rng.randn(14, 16, 16)
+    zim = jnp.asarray(zim_raw - np.swapaxes(zim_raw, -1, -2))
+    cases = [("zeigh", "14x(16c->32)",
+              lambda z: zlinalg.zeigh(z[0], z[1]), jnp.stack([zre, zim]))]
+    for batch, n in ((1, 16), (1, 32), (1, 64), (14, 16), (14, 32),
+                     (14, 33), (14, 48), (14, 64), (14, 128)):
+        x = sym(rng, (batch, n, n) if batch > 1 else (n, n))
+        shape = "%dx%d" % (batch, n)
+        cases.append(("default", shape, jnp.linalg.eigh, x))
+        cases.append(("jacobi", shape, forced(impl.JACOBI), x))
+        cases.append(("qr", shape, forced(impl.QR), x))
+
+    for name, shape, f, x in cases:
+        try:
+            t_disp = timeit(jax.jit(f), x)
+            t_chain = timeit(chained(f), x) / N_CHAIN
+        except Exception as e:  # a solver the installed jaxlib refuses
+            print("%-14s %-14s failed: %s" % (name, shape,
+                                              str(e).splitlines()[0]))
+            continue
+        print("%-14s %-14s dispatch %9.4f ms  chained %9.4f ms"
+              % (name, shape, t_disp, t_chain), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,7 +1,8 @@
-"""Stage-cost breakdown of the bench DMET iteration on the current
-backend (TPU under the driver): mean field / bath+transforms / one
-fit-step value_and_grad, each timed as a 20-deep chained program to
-remove dispatch latency.  Run: python scripts/prof_stage_breakdown.py"""
+"""Stage-cost breakdown of the bench DMET iteration on the GPU: mean
+field / bath+transforms / one fit-step value_and_grad, each timed as a
+20-deep chained program to remove dispatch latency (host clock, ended by
+block_until_ready).  Exits non-zero without a GPU.
+Run: python scripts/prof_stage_breakdown.py"""
 import os, sys, time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
@@ -10,6 +11,10 @@ import jax, jax.numpy as jnp
 from jax import lax
 from libdmet_preview_tpu.ops import zlinalg
 from libdmet_preview_tpu.ops.zlinalg import zrho_fermi_w, rho_fermi_real
+from bench import card_line, require_gpu
+
+require_gpu()
+print(card_line(), flush=True)
 
 NK, NLO, NVAL = 27, 16, 16
 NEO = NLO + NVAL
@@ -118,11 +123,9 @@ progs = [
     ("fit_vg_step", chain(fit_vg, lambda o: o[0] + jnp.sum(o[1]))),
 ]
 for name, f in progs:
-    out = f(p0)
-    jax.block_until_ready(out)
+    jax.block_until_ready(f(p0))
     t0 = time.perf_counter()
     for _ in range(5):
-        out = f(p0)
-        np.asarray(out)
+        jax.block_until_ready(f(p0))
     t = (time.perf_counter() - t0) / 5 / 20 * 1e3
     print("%-12s %8.3f ms/eval" % (name, t), flush=True)

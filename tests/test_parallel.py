@@ -149,12 +149,12 @@ def test_gdf_sharded_matches_serial():
 
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
 def test_dryrun_library_step():
-    """The driver-facing multichip dryrun: one full DMET iteration with the
+    """The multi-device dry run: one full DMET iteration with the
     library's sharded kernels on the 2-axis (k x aux) virtual mesh
     (libdmet_preview_tpu/parallel/dryrun.py).  The module itself asserts
     each sharded kernel against the serial path at 1e-8."""
     from libdmet_preview_tpu.parallel.dryrun import run_dmet_iteration_sharded
-    res = run_dmet_iteration_sharded(8)
+    res = run_dmet_iteration_sharded(jax.devices()[:8])
     assert res["mesh"] == (4, 2)
     assert np.isfinite(res["E_imp"])
     assert abs(res["nelec_imp"] - 1.0) < 1e-5
