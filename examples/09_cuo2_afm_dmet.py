@@ -1,7 +1,7 @@
 """Antiferromagnetic CuO2 plane ab initio DMET -- the cuprate parent layer.
 
 Native end to end: Cu q11 GTH-PADE pseudopotential (4s/3d valence) with
-the generated gen-szv basis, sqrt2 x sqrt2 AFM double cell (2 Cu + 4 O)
+the generated tpu-szv basis, sqrt2 x sqrt2 AFM double cell (2 Cu + 4 O)
 with vacuum along z, jellium-compensated (CuO2)^2- charge state,
 spin-polarized supercell UHF with a staggered d9 guess, Lowdin
 localization, interacting-bath UHF-DMET with bath matching.

@@ -1,5 +1,5 @@
 // Native s-Gaussian integral core
-// (this framework's replacement for the capability the reference takes
+// (the TPU framework's replacement for the capability the reference takes
 // from PySCF's C libcgto, SURVEY 2.8: AO integrals).  Contracted s-shell
 // two-electron repulsion integrals over the Boys F0 kernel; plain C ABI
 // consumed through ctypes (pybind11 is not in this image).

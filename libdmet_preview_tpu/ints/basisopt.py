@@ -11,7 +11,7 @@ set per angular channel is contracted with the orbital coefficients of
 a spherically-averaged fractional-occupation atomic Hartree-Fock
 calculation run against the GTH pseudopotential -- which is exactly how
 SZV-class sets are built.  The result is a reproducible, self-contained
-minimal valence basis ("gen-szv") for any element with a GTH_PADE entry.
+minimal valence basis ("tpu-szv") for any element with a GTH_PADE entry.
 
 Atomic SCF details: restricted fractional occupations spread the
 valence electrons evenly over the 2(2l+1) spin-orbitals of each open
@@ -203,7 +203,7 @@ _CACHE_DIR = os.path.join(os.path.dirname(__file__), "_basis_cache")
 
 
 def make_gth_valence_basis(sym, cache=True, variant="atom"):
-    """Minimal valence contracted basis ('gen-szv') for `sym`, generated
+    """Minimal valence contracted basis ('tpu-szv') for `sym`, generated
     from the atomic HF described in the module docstring.  Returns the
     GBASIS-style shell list [(l, [(exp, coef), ...]), ...] with one
     contracted function per occupied valence shell per l.
@@ -212,7 +212,7 @@ def make_gth_valence_basis(sym, cache=True, variant="atom"):
     workloads: the dropped tails are spanned by neighbouring cells;
     lattice-sum image counts shrink as rcut^3)."""
     tag = "" if variant == "atom" else "_" + variant
-    fname = os.path.join(_CACHE_DIR, "%s_gen_szv%s.json" % (sym, tag))
+    fname = os.path.join(_CACHE_DIR, "%s_tpu_szv%s.json" % (sym, tag))
     if cache and os.path.exists(fname):
         with open(fname) as f:
             data = json.load(f)
@@ -237,7 +237,7 @@ def make_gth_valence_basis(sym, cache=True, variant="atom"):
 
 
 # ----------------------------------------------------------------------
-# double-zeta + polarization ("gen-dzvp")
+# double-zeta + polarization ("tpu-dzvp")
 # ----------------------------------------------------------------------
 
 def _pol_exponent(l_val, es, coefs, l_pol):
@@ -289,7 +289,7 @@ def _pol_exponent(l_val, es, coefs, l_pol):
 
 
 def make_gth_dzvp_basis(sym, cache=True, variant="atom", pol=True):
-    """Split-valence double-zeta (+ polarization) basis ('gen-dzvp')
+    """Split-valence double-zeta (+ polarization) basis ('tpu-dzvp')
     for `sym`, generated natively from the same GTH atomic HF as the
     SZV set (the reference inherits gth-dzvp(-molopt-sr) from CP2K
     tables via PySCF, e.g.
@@ -307,7 +307,7 @@ def make_gth_dzvp_basis(sym, cache=True, variant="atom", pol=True):
     Returns the GBASIS-style shell list."""
     tag = ("" if variant == "atom" else "_" + variant) + \
         ("" if pol else "_nopol")
-    fname = os.path.join(_CACHE_DIR, "%s_gen_dzvp%s.json" % (sym, tag))
+    fname = os.path.join(_CACHE_DIR, "%s_tpu_dzvp%s.json" % (sym, tag))
     if cache and os.path.exists(fname):
         with open(fname) as f:
             data = json.load(f)

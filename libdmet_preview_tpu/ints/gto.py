@@ -6,7 +6,7 @@ libcgto); this module owns that capability natively for the s-function
 basis sets the H-chain/H-ring ab initio tests use (STO-3G, STO-6G, 3-21G
 on hydrogen are pure s).  Closed-form McMurchie-Davidson expressions for
 s-shells: overlap, kinetic, nuclear attraction and ERIs through the Boys
-function F0.  Batched numpy on host -- AO integrals are INPUTS to the device
+function F0.  Batched numpy on host -- AO integrals are INPUTS to the TPU
 compute path (computed once per geometry).
 
 All quantities in atomic units (bohr, hartree).

@@ -17,7 +17,7 @@ validated s-only engine -- a machine-precision, self-contained oracle --
 plus rotational invariance of total energies and the PySCF-documented
 H2O/STO-3G RHF anchor.
 
-Host numpy: AO integrals are one-time inputs to the device compute path.
+Host numpy: AO integrals are one-time inputs to the TPU compute path.
 """
 
 import itertools as it

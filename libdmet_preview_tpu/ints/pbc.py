@@ -23,7 +23,7 @@ with w(G) = 4 pi / G^2 (w=0 at G=0) and f_IJ(G) the torus pair FT
 (a short-ranged image sum of the analytic Gaussian pair FT).
 
 Everything is generated ONCE per geometry on the host (AO integrals are
-inputs to the device compute path); the G-contractions are O(nG nao^4) GEMMs
+inputs to the TPU compute path); the G-contractions are O(nG nao^4) GEMMs
 done in blocks.
 """
 

@@ -1,6 +1,6 @@
 """
 LDA/LSDA exchange-correlation functionals with autodiff potentials
-(JAX replacement for the capability the reference borrows from
+(TPU-native replacement for the capability the reference borrows from
 PySCF's libxc bindings; consumers: KS-DFT mean field and the DFT-in-DMET
 double counting, /root/reference/libdmet/routine/pdft_helper.py:43-500).
 

@@ -686,12 +686,12 @@ def make_nio_afm_lattice(nk=2, a_ang=4.17, gmax=None, chol_tol=1e-8,
     (/root/reference/examples/dmet/03-dmet-nio-afm/nio_afm.py): the
     rhombohedral AFM-II double cell (2 Ni + 2 O; the two Ni carry
     opposite spins), GTH-PADE pseudopotentials with s/p/d nonlocal
-    projectors (ints/gth.py), and the natively generated gen-szv
+    projectors (ints/gth.py), and the natively generated tpu-szv
     minimal valence basis (ints/basisopt.py), on a BvK torus of nk
     cells along the third primitive vector.
 
     Spin-polarized supercell UHF with an AFM initial guess, Lowdin LOs
-    (gen-szv is minimal, so Lowdin == the IAO valence space), per-spin
+    (tpu-szv is minimal, so Lowdin == the IAO valence space), per-spin
     lattice operators, dense LO ERI + Cholesky factors for the
     interacting-bath path, spin-blocked cell ERIs for NIB.
 
@@ -735,14 +735,14 @@ def _make_nio_lattice(order, nk, a_ang, gmax, chol_tol, precision,
              ("Ni", np.array([0.5, 0.5, 0.5])),       # Ni (spin down)
              ("O", np.array([0.25, 0.25, 0.25])),
              ("O", np.array([0.75, 0.75, 0.75]))]
-    basis_data = {(sym, "gen-szv"): make_gth_valence_basis(
+    basis_data = {(sym, "tpu-szv"): make_gth_valence_basis(
         sym, variant=basis_variant) for sym in ("Ni", "O")}
     atoms = []
     for c in range(nk):
         for sym, f in fracs:
             atoms.append((sym, f @ P + c * P[2]))
     a_sc = np.asarray([P[0], P[1], nk * P[2]])
-    cell = PbcCell(atoms, a_sc, basis="gen-szv", basis_data=basis_data,
+    cell = PbcCell(atoms, a_sc, basis="tpu-szv", basis_data=basis_data,
                    unit="B", pseudo="gth-pade", gmax=gmax,
                    precision=precision)
     cell.set_translations(nk, np.arange(nk)[:, None] * P[2][None, :])
@@ -781,7 +781,7 @@ def _make_nio_lattice(order, nk, a_ang, gmax, chol_tol, precision,
     nao_atom = {}
     for sym in ("Ni", "O"):
         nao_atom[sym] = sum({0: 1, 1: 3, 2: 6}[l]
-                            for l, _ in basis_data[(sym, "gen-szv")])
+                            for l, _ in basis_data[(sym, "tpu-szv")])
     dm0 = np.zeros((2, nsite, nsite))
     p = 0
     ni_seen = 0
@@ -887,7 +887,7 @@ def make_cuo2_afm_lattice(nk=2, a_ang=3.80, vac_ang=8.0, gmax=None,
     two extra electrons per formula come with a uniform compensating
     background (the G=0 Coulomb terms are already dropped -- standard
     jellium compensation for charged layers).  Cu carries the q11
-    GTH-PADE pseudopotential (4s/3d valence) and the generated gen-szv
+    GTH-PADE pseudopotential (4s/3d valence) and the generated tpu-szv
     basis (ints/basisopt.py).
 
     Spin-polarized supercell UHF with a staggered d9 AFM guess; rest of
@@ -904,7 +904,7 @@ def make_cuo2_afm_lattice(nk=2, a_ang=3.80, vac_ang=8.0, gmax=None,
     sites = [("Cu", (0.0, 0.0)), ("Cu", (1.0, 0.0)),
              ("O", (0.5, 0.0)), ("O", (0.0, 0.5)),
              ("O", (1.5, 0.0)), ("O", (1.0, 0.5))]
-    basis_data = {(sym, "gen-szv"): make_gth_valence_basis(
+    basis_data = {(sym, "tpu-szv"): make_gth_valence_basis(
         sym, variant=basis_variant) for sym in ("Cu", "O")}
     atoms = []
     for ccell in range(nk):
@@ -912,7 +912,7 @@ def make_cuo2_afm_lattice(nk=2, a_ang=3.80, vac_ang=8.0, gmax=None,
             atoms.append((sym, np.asarray([x * a0, y * a0, 0.0])
                           + ccell * A[0]))
     a_sc = np.asarray([nk * A[0], A[1], A[2]])
-    cell = PbcCell(atoms, a_sc, basis="gen-szv", basis_data=basis_data,
+    cell = PbcCell(atoms, a_sc, basis="tpu-szv", basis_data=basis_data,
                    unit="B", pseudo="gth-pade", gmax=gmax,
                    precision=precision)
     cell.set_translations(nk, np.arange(nk)[:, None] * A[0][None, :])
@@ -951,11 +951,11 @@ def make_cuo2_afm_lattice(nk=2, a_ang=3.80, vac_ang=8.0, gmax=None,
             _os.replace(tmp, cfile)
 
     # AFM d9 guess: Cu sublattice A majority-alpha d, B majority-beta;
-    # O closed shell 2s2 2p6.  Cu gen-szv shell order: 4s, d(x6)
+    # O closed shell 2s2 2p6.  Cu tpu-szv shell order: 4s, d(x6)
     nao_atom = {}
     for sym in ("Cu", "O"):
         nao_atom[sym] = sum({0: 1, 1: 3, 2: 6}[l]
-                            for l, _ in basis_data[(sym, "gen-szv")])
+                            for l, _ in basis_data[(sym, "tpu-szv")])
     dm0 = np.zeros((2, nsite, nsite))
     p = 0
     cu_seen = 0

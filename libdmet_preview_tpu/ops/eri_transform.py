@@ -74,14 +74,22 @@ def eri_from_factors(La, Lb=None):
 _syrk_eri = jax.jit(eri_from_factors)
 
 
-def _check_symmetric(L_emb):
+@jax.jit
+def _asymmetry(L_emb):
+    """max |L - L^T| / max(max |L|, 1) of rotated factors, on the device."""
+    asym = jnp.max(jnp.abs(L_emb - jnp.swapaxes(L_emb, 1, 2)), initial=0.0)
+    return asym / jnp.maximum(jnp.max(jnp.abs(L_emb), initial=0.0), 1.0)
+
+
+def _check_symmetric(asym):
     """The s4 packing reads only i >= j: refuse factors that are not
-    symmetric in (ij)."""
-    L_emb = np.asarray(L_emb)
-    asym = np.max(np.abs(L_emb - L_emb.transpose(0, 2, 1)), initial=0.0)
-    if asym > 1e-10 * max(np.max(np.abs(L_emb), initial=0.0), 1.0):
+    symmetric in (ij).  `asym` is _asymmetry's device scalar; callers
+    read it after fetching the ERI, so the check adds no sync and no
+    copy of the factors to the host."""
+    asym = float(asym)
+    if asym > 1e-10:
         raise ValueError("DF factors must be symmetric in (pq); "
-                         "max |L - L^T| = %.3e" % asym)
+                         "max |L - L^T| / max |L| = %.3e" % asym)
 
 
 def get_emb_eri_chol(L, basis, outcore=None):
@@ -101,8 +109,7 @@ def get_emb_eri_chol(L, basis, outcore=None):
     C = basis.reshape(spin, ncells * nlo, neo)
     Lj = jnp.asarray(L)
     Ls = [_rotate_chol(Lj, jnp.asarray(C[s])) for s in range(spin)]
-    for Ls_s in Ls:
-        _check_symmetric(Ls_s)
+    asym = jnp.max(jnp.stack([_asymmetry(x) for x in Ls]))
     if spin == 1:
         blocks = [_syrk_eri(Ls[0])]
     else:
@@ -115,9 +122,12 @@ def get_emb_eri_chol(L, basis, outcore=None):
                 "eri", (len(blocks),) + (neo,) * 4, dtype="f8")
             for i, b in enumerate(blocks):
                 dset[i] = np.asarray(b)
+        _check_symmetric(asym)
         f = h5py.File(outcore, "r")
         return f["eri"]
-    return np.asarray([np.asarray(x) for x in blocks])
+    eri = np.asarray([np.asarray(x) for x in blocks])
+    _check_symmetric(asym)
+    return eri
 
 
 def get_emb_eri_gso_chol(L, basis):
@@ -147,8 +157,10 @@ def get_emb_eri_gso_chol(L, basis):
     La = _rotate_chol(Lj, jnp.asarray(Ca))
     Lb = _rotate_chol(Lj, jnp.asarray(Cb))
     Ld = La - Lb
-    _check_symmetric(Ld)
-    return np.asarray(_syrk_eri(Ld))
+    asym = _asymmetry(Ld)
+    eri = np.asarray(_syrk_eri(Ld))
+    _check_symmetric(asym)
+    return eri
 
 
 def _cplx_einsum(spec, *pairs):

@@ -1,10 +1,10 @@
 """
-Native split-valence double-zeta + polarization ('gen-dzvp') generation
+Native split-valence double-zeta + polarization ('tpu-dzvp') generation
 (ints/basisopt.make_gth_dzvp_basis) -- the reference inherits
 gth-dzvp(-molopt-sr) from CP2K tables via PySCF (its NiO-FM workload,
 /root/reference/examples/dmet/04-dmet-nio-fm/nio_fm.py:37); here the
 set is CONSTRUCTED from the same GTH atomic Hartree-Fock that builds
-gen-szv, so the only oracle needed is the variational principle plus
+tpu-szv, so the only oracle needed is the variational principle plus
 structural sanity.
 """
 
@@ -59,8 +59,8 @@ def test_dzvp_h2_variational():
         make_gth_valence_basis, make_gth_dzvp_basis)
 
     atoms = [("H", (0.0, 0.0, 0.0)), ("H", (0.0, 0.0, 1.4))]
-    szv = {("H", "gen-szv"): make_gth_valence_basis("H")}
-    dzvp = {("H", "gen-dzvp"): make_gth_dzvp_basis("H")}
+    szv = {("H", "tpu-szv"): make_gth_valence_basis("H")}
+    dzvp = {("H", "tpu-dzvp"): make_gth_dzvp_basis("H")}
     E_szv, _ = _gth_rhf(atoms, szv, 2)
     E_dzvp, S = _gth_rhf(atoms, dzvp, 2)
     # split valence + polarization buys > 10 mHa on H2 at equilibrium
@@ -107,8 +107,8 @@ def test_dzvp_o_atom_variational():
     # same geometry (RHF singlet O2 is not the physical ground state but
     # is a perfectly good variational comparison point)
     atoms = [("O", (0.0, 0.0, 0.0)), ("O", (0.0, 0.0, 2.28))]
-    szv = {("O", "gen-szv"): make_gth_valence_basis("O")}
-    dzvp = {("O", "gen-dzvp"): make_gth_dzvp_basis("O")}
+    szv = {("O", "tpu-szv"): make_gth_valence_basis("O")}
+    dzvp = {("O", "tpu-dzvp"): make_gth_dzvp_basis("O")}
     E_szv, _ = _gth_rhf(atoms, szv, 12)
     E_dzvp, _ = _gth_rhf(atoms, dzvp, 12)
     assert E_dzvp < E_szv - 0.010

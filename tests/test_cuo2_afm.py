@@ -1,7 +1,7 @@
 """
 Ab initio CuO2 plane: ANTIFERROMAGNETIC cuprate parent layer through the
 native integral engine -- Cu q11 GTH-PADE pseudopotential (4s/3d
-valence) with the generated gen-szv basis, sqrt2 x sqrt2 AFM double
+valence) with the generated tpu-szv basis, sqrt2 x sqrt2 AFM double
 cell (2 Cu + 4 O) with vacuum along z, jellium-compensated (CuO2)^2-
 charge, range-separated ERIs, spin-polarized supercell UHF with a
 staggered d9 guess, Lowdin LOs, interacting-bath UHF-DMET.

@@ -33,6 +33,18 @@ def _chain_setup(naux=8, seed=3):
     return Lat, vcor, L
 
 
+def _fit_target(step, p0, seed=7):
+    """A non-zero fit target: the Fermi projector of embH1 at perturbed
+    parameters (as chip_smoke.py builds it), so the fit error depends on
+    the embedding basis the target is given in."""
+    dp = np.random.RandomState(seed).randn(len(p0)) * 0.1
+    embH1 = np.asarray(step(jnp.asarray(p0 + dp), jnp.zeros((1, 4, 4)))[2])
+    w, V = np.linalg.eigh(embH1)
+    occ = 1.0 / (np.exp(np.clip(1000.0 * (w - np.median(w)), -100, 100))
+                 + 1.0)
+    return np.einsum("spi, si, sqi -> spq", V, occ, V)
+
+
 def _orthonormal_basis(rng, spin, ncells, nlo, neo):
     C = np.stack([np.linalg.qr(rng.randn(ncells * nlo, neo))[0]
                   for _ in range(spin)])
@@ -90,11 +102,56 @@ def test_fused_step_takes_factors_as_argument():
     assert all(np.shape(c) != L.shape for c in inner.consts)
 
 
-def test_fused_step_rejects_unknown_engine():
+@pytest.mark.parametrize("gso", [False, True])
+def test_emb_eri_chol_refuses_asymmetric_factors(gso):
+    """The s4-packed product reads only i >= j of each factor, so factors
+    that are not symmetric in (pq) are refused, not silently folded."""
+    from libdmet_preview_tpu.ops.eri_transform import (get_emb_eri_chol,
+                                                       get_emb_eri_gso_chol)
+    rng = np.random.RandomState(4)
+    L = rng.randn(16, 8, 8)
+    if gso:
+        basis = _orthonormal_basis(rng, 1, 1, 16, 6)
+        eri = get_emb_eri_gso_chol(L + L.transpose(0, 2, 1), basis)
+        with pytest.raises(ValueError):
+            get_emb_eri_gso_chol(L, basis)
+    else:
+        basis = _orthonormal_basis(rng, 2, 2, 4, 6)
+        eri = get_emb_eri_chol(L + L.transpose(0, 2, 1), basis)
+        with pytest.raises(ValueError):
+            get_emb_eri_chol(L, basis)
+    assert np.all(np.isfinite(eri))
+
+
+def test_fused_step_bath_gauge_fixed(monkeypatch):
+    """The fused step's basis and fit error do not depend on the signs
+    the eigensolver gives the bath eigenvectors: with a non-zero target,
+    negating columns of the Gram eigenvectors changes nothing."""
     from libdmet_preview_tpu.ops.fastpath import make_dmet_iteration
     Lat, vcor, _ = _chain_setup()
-    with pytest.raises(ValueError):
-        make_dmet_iteration(Lat, vcor, 0.5, fit_engine="newton")
+
+    def run():
+        step, p0 = make_dmet_iteration(Lat, vcor, 0.5, beta=1000.0,
+                                       fit_max_iter=5)
+        return step, p0
+
+    step, p0 = run()
+    target = _fit_target(step, p0)
+    p_ref, e_ref, _, _, b_ref = step(jnp.asarray(p0), target)
+
+    eigh = jnp.linalg.eigh
+
+    def eigh_flipped(a, *args, **kwargs):
+        w, V = eigh(a, *args, **kwargs)
+        return w, V * (-1.0) ** jnp.arange(V.shape[-1])
+
+    monkeypatch.setattr(jnp.linalg, "eigh", eigh_flipped)
+    step_f, _ = run()
+    p_f, e_f, _, _, b_f = step_f(jnp.asarray(p0), target)
+    assert float(e_ref) > 1e-3
+    assert np.abs(np.asarray(b_f) - np.asarray(b_ref)).max() < 1e-12
+    assert abs(float(e_f) - float(e_ref)) < 1e-12
+    assert np.abs(np.asarray(p_f) - np.asarray(p_ref)).max() < 1e-10
 
 
 def test_lm_solve_matches_numpy():
@@ -178,15 +235,17 @@ def test_chip_smoke_main_exits_without_gpu(capsys):
 @pytest.mark.gpu
 def test_fused_step_gpu_matches_cpu(gpu_device):
     """The fused step with the ERI transform on the GPU == the same
-    program on the host CPU, by rotation-invariant quantities."""
+    program on the host CPU, by rotation-invariant quantities, with a
+    non-zero fit target given in the bath basis."""
     from libdmet_preview_tpu.ops.fastpath import make_dmet_iteration
     Lat, vcor, L = _chain_setup()
-    target = jnp.zeros((1, 4, 4))
     outs = []
     for dev in (gpu_device, jax.devices("cpu")[0]):
         with jax.default_device(dev):
             step, p0 = make_dmet_iteration(Lat, vcor, 0.5, beta=1000.0,
                                            fit_max_iter=5, chol_L=L)
+            if not outs:
+                target = _fit_target(step, p0)
             outs.append(jax.tree.map(np.asarray,
                                      step(jnp.asarray(p0), target)))
     (_, e_g, h_g, r_g, b_g, eri_g), (_, e_c, h_c, r_c, b_c, eri_c) = outs

@@ -1,7 +1,7 @@
 """
 d-block ab initio solid: ANTIFERROMAGNETIC NiO through the native
 integral engine -- general-l GTH pseudopotentials with p/d nonlocal
-projectors on Ni, the generated gen-szv minimal valence basis
+projectors on Ni, the generated tpu-szv minimal valence basis
 (3s/4s/3p/3d on Ni, 2s/2p on O), AFM-II rhombohedral double cell,
 spin-polarized supercell UHF, Lowdin LOs, interacting-bath UHF-DMET.
 

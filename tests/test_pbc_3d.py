@@ -139,9 +139,9 @@ def test_emb_eri_fft_df():
     3.3e-4 on this cell)."""
     from libdmet_preview_tpu.ints.pbc import PbcCell
     from libdmet_preview_tpu.ints.basisopt import make_gth_valence_basis
-    bd = {("H", "gen-szv"): make_gth_valence_basis("H")}
+    bd = {("H", "tpu-szv"): make_gth_valence_basis("H")}
     cell = PbcCell([("H", (0, 0, 0)), ("H", (1.6, 0, 0))],
-                   np.eye(3) * 3.2, basis="gen-szv", basis_data=bd,
+                   np.eye(3) * 3.2, basis="tpu-szv", basis_data=bd,
                    unit="B", pseudo="gth-pade", precision=1e-8)
     rng = np.random.default_rng(0)
     C = rng.normal(size=(cell.nao, 2))

@@ -690,12 +690,12 @@ def test_rho_fermi_real_matches_doubled():
 def test_lm_engine_ft_matches_cg():
     """The Levenberg-Marquardt embedding-fit engine (exact Daleckii-
     Krein Jacobian, one eigh per iteration) solves the same objective
-    as the CG engine: on an achievable target (rho at p_true) it drives
-    the residual to ~0, and it never does worse than CG at equal
-    iteration budget."""
+    as the CG engine: on an achievable target (rho at p_true), with an
+    orthonormal basis and no mask, it drives the residual to ~0, and it
+    never does worse than CG at equal iteration budget."""
     import jax
     import jax.numpy as jnp
-    from libdmet_preview_tpu.ops.fit import _cg_engine, _lm_engine_ft
+    from libdmet_preview_tpu.ops.fit import _cg_engine, _fit_lm_finite_t
     from libdmet_preview_tpu.ops.zlinalg import rho_fermi_real
 
     rng = np.random.RandomState(5)
@@ -722,8 +722,11 @@ def test_lm_engine_ft_matches_cg():
     err_start = float(err_fn(p0))
     fg = jax.value_and_grad(err_fn)
     p_cg, err_cg, _ = _cg_engine(fg, p0, 30, 1e-12, 1e-9)
-    p_lm, err_lm, _ = _lm_engine_ft(p0, embH1, dV, target, nelec2,
-                                    beta, 30, 1e-12, 1e-9)
+    Li = jnp.broadcast_to(jnp.eye(n), (spin, n, n))
+    mask = jnp.ones((spin, n, n))
+    p_lm, err_lm, _ = _fit_lm_finite_t(p0, embH1, dV, Li, mask, target,
+                                       1e-12, 1e-9, (nelec2,) * spin,
+                                       beta, 30, spin)
     # the LM engine evaluates the same objective it minimizes
     assert abs(float(err_fn(p_lm)) - float(err_lm)) < 1e-10
     assert float(err_lm) < 1e-6            # achievable target reached
